@@ -31,6 +31,10 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     import numpy as np
 
+    from semicp.cli.common import setup_jax
+
+    setup_jax()
+
     from semicp import Config
     from semicp.cloud import make_cloud, preprocess_cloud
     from semicp.data import make_pair

@@ -9,25 +9,31 @@ from pathlib import Path
 import numpy as np
 
 
-def setup_jax(cache_dir: str | None = None) -> None:
+# the persistent compilation cache's home when JAX_COMPILATION_CACHE_DIR
+# is unset: one fixed directory in the checkout (listed in .gitignore)
+CACHE_DIR = Path(__file__).resolve().parents[2] / ".jax_cache"
+
+
+def compile_cache_dir() -> str:
+    """JAX_COMPILATION_CACHE_DIR when it is set, else CACHE_DIR."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or str(CACHE_DIR)
+
+
+def setup_jax() -> None:
     """Enable the persistent XLA compilation cache for this process.
 
-    A KITTI-scale align program costs ~27 s to compile (BENCH_r03); the
-    cache amortizes it across CLI invocations at identical shapes.
-    Controlled by SEMICP_COMPILE_CACHE (a directory, or "0" to disable);
-    defaults to ~/.cache/semicp_xla. Safe to call more than once.
+    A scan-scale align program takes tens of seconds to compile; the
+    cache amortizes it across invocations at identical shapes. Safe to
+    call more than once.
     """
     import jax
 
-    cache_dir = cache_dir or os.environ.get(
-        "SEMICP_COMPILE_CACHE", os.path.expanduser("~/.cache/semicp_xla"))
-    if not cache_dir or cache_dir == "0":
-        return
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
+    jax.config.update("jax_compilation_cache_dir", compile_cache_dir())
     # cache every program: CLI processes are short-lived, so even
     # fast-compiling helper programs are worth persisting
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+
 
 from semicp.config import Config
 from semicp.cloud import Cloud, make_cloud, preprocess_cloud
@@ -97,10 +103,10 @@ def to_device_cloud(pts, lab, cfg: Config) -> Cloud:
     """Pad, upload, and preprocess a scan with the FULL config.
 
     The full config puts the cloud in canonical class-major Morton
-    layout (corr.layout), which selects the block-sparse covariance
-    kernel here and lets align skip its own per-align sort — the
-    product path every CLI driver should take (a bare cfg.cov would
-    silently fall back to the dense kernels + raw layout).
+    layout (corr.layout), which selects the sparse moments walk here
+    and lets align skip its own per-align sort — the product path every
+    CLI driver should take (a bare cfg.cov would fall back to the dense
+    O(N^2) sweep + raw layout).
 
     Labels are validated against cfg.cloud.num_classes here: the KITTI
     path remaps into [0, K), but `.pcd` XYZL files carry arbitrary

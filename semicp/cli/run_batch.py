@@ -16,8 +16,7 @@ batched run reproduces S independent run_slam runs (pinned by
 tests/test_batch_slam.py).
 
 This is the scaling-study driver: aggregate frames/s versus mesh size
-is the BASELINE.json:5 efficiency metric (run under a real pod slice;
-here it exercises the virtual CPU mesh or the single chip).
+is the BASELINE.json:5 efficiency metric, measured over a host's cards.
 
 Usage:
   python -m semicp.cli.run_batch --synthetic 30 --sequences 8 [--n-points 2000]
@@ -34,12 +33,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from semicp.cli.common import setup_jax, print_result
+from semicp.cli.common import print_result, setup_jax
 from semicp.cloud import make_cloud, preprocess_cloud
 from semicp.config import Config, parse_overrides
 from semicp.dist import batched_align, make_mesh
 from semicp.dist.batch import shard_batch
-from semicp.utils import MetricsLogger, PhaseTimer, drain
+from semicp.utils import MetricsLogger, PhaseTimer
+from semicp.utils.device import require_gpu
 
 
 def build_parser():
@@ -151,7 +151,7 @@ def run_batch_slam(args, cfg: Config):
                 for s in range(S)
             ])
             batch = pre_batch(raw)
-            drain(batch.cov6)
+            jax.block_until_ready(batch)
         if prev is None:
             for s in range(S):
                 pts, lab = seqs[s][0][t]
@@ -166,7 +166,7 @@ def run_batch_slam(args, cfg: Config):
             src_b, tgt_b, T0_b = (shard_batch(mesh, x)
                                   for x in (batch, prev, jnp.asarray(T_rel_prev)))
             res = align_b(src_b, tgt_b, T0_b)
-            drain(res.T)
+            jax.block_until_ready(res)
         n_aligns += S
         T_rel_all = np.asarray(res.T, np.float64)
         H_all = np.asarray(res.H, np.float64)
@@ -249,7 +249,7 @@ def run_batch_slam(args, cfg: Config):
         for s in pgo_seqs:
             with timer.phase("pgo"):
                 graphs[s] = optimize_pose_graph(graphs[s], cfg.slam)
-                drain(graphs[s].poses)
+                jax.block_until_ready(graphs[s])
             T_now[s] = np.asarray(graphs[s].poses, np.float64)[new_kf[s]]
         prev = batch
     wall = time.perf_counter() - t_start
@@ -281,7 +281,8 @@ def run_batch_slam(args, cfg: Config):
 
 
 def main(argv=None):
-    setup_jax()  # persistent XLA compile cache (VERDICT r3 #3)
+    setup_jax()
+    require_gpu(allow_cpu=True)
     ap = build_parser()
     args, extra = ap.parse_known_args(argv if argv is not None else sys.argv[1:])
     cfg = Config().override(parse_overrides(extra))
@@ -313,7 +314,7 @@ def main(argv=None):
                                   max_points=args.n_points) for p in traj]
             seqs.append((frames, traj))
 
-    pre_batch = jax.jit(jax.vmap(lambda c: preprocess_cloud(c, cfg.cov)))
+    pre_batch = jax.jit(jax.vmap(lambda c: preprocess_cloud(c, cfg)))
     align_b = batched_align(mesh, cfg)
 
     def stack_clouds(clouds):
@@ -332,13 +333,13 @@ def main(argv=None):
                 for s in range(S)
             ])
             batch = pre_batch(raw)
-            drain(batch.cov6)
+            jax.block_until_ready(batch)
         if prev is not None:
             with timer.phase("align_batch"):
                 src_b, tgt_b, T0_b = (shard_batch(mesh, x)
                                       for x in (batch, prev, jnp.asarray(T_rel_prev)))
                 res = align_b(src_b, tgt_b, T0_b)
-                drain(res.T)
+                jax.block_until_ready(res)
             T_rel = np.asarray(res.T, np.float64)
             T_rel_prev = np.asarray(res.T)
             for s in range(S):

@@ -21,9 +21,10 @@ import jax.numpy as jnp
 import numpy as np
 
 from semicp.config import Config, parse_overrides
-from semicp.cli.common import setup_jax, load_scan_np, print_result, to_device_cloud
+from semicp.cli.common import load_scan_np, print_result, setup_jax, to_device_cloud
 from semicp.register import make_align_fn
-from semicp.utils import MetricsLogger, PhaseTimer, drain
+from semicp.utils import MetricsLogger, PhaseTimer
+from semicp.utils.device import require_gpu
 
 
 def build_parser():
@@ -59,7 +60,8 @@ def parse_t_init(text: str) -> np.ndarray:
 
 
 def main(argv=None):
-    setup_jax()  # persistent XLA compile cache (VERDICT r3 #3)
+    setup_jax()
+    require_gpu(allow_cpu=True)
     argv = argv if argv is not None else sys.argv[1:]
     ap = build_parser()
     args, extra = ap.parse_known_args(argv)
@@ -88,24 +90,24 @@ def main(argv=None):
     with timer.phase("preprocess"):
         src = to_device_cloud(src_pts, src_lab, cfg)
         tgt = to_device_cloud(tgt_pts, tgt_lab, cfg)
-        drain((src.cov6, tgt.cov6))
+        jax.block_until_ready((src, tgt))
 
     T0 = parse_t_init(args.t_init) if args.t_init else None
     align_fn = make_align_fn(cfg)
     with timer.phase("compile+first_align"):
         res = align_fn(src, tgt, T0)
-        drain(res.T)
+        jax.block_until_ready(res)
     if args.profile:
         # SURVEY.md §5 tracing: capture the steady-state align under the
         # profiler (block_until_ready discipline for honest spans)
         with jax.profiler.trace(args.profile):
             res = align_fn(src, tgt, T0)
-            drain(res.T)
+            jax.block_until_ready(res)
         print(f"profile written to {args.profile}", file=sys.stderr)
     for _ in range(args.repeat - 1):
         with timer.phase("align"):
             res = align_fn(src, tgt, T0)
-            drain(res.T)
+            jax.block_until_ready(res)
 
     T = np.asarray(res.T, np.float64)
     out = {

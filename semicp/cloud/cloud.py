@@ -1,4 +1,4 @@
-"""Padded planar-SoA semantic point cloud — the TPU-native representation.
+"""Padded planar-SoA semantic point cloud.
 
 Replaces the reference's `SemanticPointCloud<PointT, SemanticT>`
 (expected at include/semantic_icp/semantic_point_cloud.h, SURVEY.md §2.1
@@ -9,10 +9,10 @@ row "Semantic point cloud"). Two design inversions vs the reference:
    composite sort keys (semicp/corr/).
 2. Planar layout: positions are three (N,) coordinate planes stacked as
    (3, N); covariances are six symmetric-component planes (6, N) in
-   semicp.geom.sym3 order. XLA tiles the minor-most two dims of every
-   array to (8,128); an (N,3) or (N,3,3) layout pads 3->128 lanes and
-   wastes 42x-1139x HBM (measured: 58 GB for a 1.4 GB logical gather).
-   Planar arrays have N on the lane dimension — perfect tiling.
+   semicp.geom.sym3 order. Every per-point plane is a contiguous (N,)
+   row, so kernels and XLA fusions read coalesced, unpadded memory along
+   N; an (N,3) or (N,3,3) layout strides every plane and pads small
+   minor dimensions.
 
 All arrays are padded to a static capacity `n_pad`; `valid` masks the
 tail and every reduction must be mask-correct (SURVEY.md §7 hard part #2).
@@ -20,12 +20,15 @@ tail and every reduction must be mask-correct (SURVEY.md §7 hard part #2).
 
 from __future__ import annotations
 
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 
-@struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class Cloud:
     """Planar structure-of-arrays semantic cloud (a JAX pytree).
 
@@ -47,7 +50,10 @@ class Cloud:
     # layout is established once at preprocess time and lets align/cov
     # kernels skip their own sorts; any permutation not via
     # corr.layout.sort_cloud_cm must reset it to "raw".
-    layout: str = struct.field(pytree_node=False, default="raw")
+    layout: str = dataclasses.field(default="raw", metadata=dict(static=True))
+
+    def replace(self, **changes) -> "Cloud":
+        return dataclasses.replace(self, **changes)
 
     @property
     def n_pad(self) -> int:

@@ -7,14 +7,13 @@ clamp to (1,1,eps); SURVEY.md §2.1 row "Per-point covariance estimation",
 within its own semantic class's sub-cloud; `class_aware=True` reproduces
 that.
 
-TPU shape: the kNN comes from the MXU brute-force engine
-(semicp.corr.bruteforce.knn_self — tiled distance matmuls + streaming
-top-k; see that module for why gather/tree approaches lose on TPU).
-Neighbor coordinates are gathered as (N, k) planes, the empirical
-covariance is six masked component reductions, and the clamp uses the
-rank-1 identity C_reg = I - (1-eps) n n^T
-(semicp.geom.sym3.regularize_gicp) — pure VPU work, amortized across
-EM iterations.
+Two neighbourhoods: method "radius" (the default) sums masked moments
+over a radius (cloud/moments.py); method "knn" takes the reference's k
+nearest neighbours from the brute-force engine
+(semicp.corr.bruteforce.knn_self — tiled distance matmuls + top-k), whose
+neighbour coordinates are gathered as (N, k) planes. Both end in the
+rank-1 clamp C_reg = I - (1-eps) n n^T (semicp.geom.sym3.regularize_gicp),
+amortized across EM iterations.
 """
 
 from __future__ import annotations
@@ -36,8 +35,8 @@ def estimate_covariances(
 
     Points with < 3 valid neighbors get the identity — the branchless
     analogue of the reference's skip. Method selection: see CovConfig.
-    `num_classes` enables the block-sparse moments kernel on cm-sorted
-    clouds (corr.layout).
+    `num_classes` enables the sparse moments walk on cm-sorted clouds
+    (corr.layout).
     """
     if cfg.method == "radius":
         return _estimate_radius(cloud, cfg, class_aware, num_classes)
@@ -72,13 +71,7 @@ def estimate_radius(xyz, label, valid, k: int = 20, class_aware: bool = True,
         mask = mask & (qlab[:, None] == label[None, :])
     d2 = jnp.where(mask, jnp.maximum(d2, 0.0), jnp.inf)
     kk = min(k + 1, n)                                   # +1: self-match
-    # approx_min_k: the TPU-native partial-reduction top-k (exact top_k
-    # lowers through a full per-row sort — measured ~54 ms at 131k width
-    # vs <3 ms here). Missed candidates only ever INCREASE the kth
-    # distance, i.e. widen the radius — the safe direction for a
-    # neighborhood that must hold >= k points (estimator shift measured
-    # 0.2% on the bench scene).
-    kth = jax.lax.approx_min_k(d2, kk, recall_target=0.95)[0][:, -1]
+    kth = -jax.lax.top_k(-d2, kk)[0][:, -1]
     kth = jnp.where(qval & jnp.isfinite(kth), kth, jnp.nan)
     r = jnp.sqrt(jnp.nanmedian(kth))
     return scale * jnp.where(jnp.isnan(r), 1.0, r)
@@ -86,7 +79,7 @@ def estimate_radius(xyz, label, valid, k: int = 20, class_aware: bool = True,
 
 def _estimate_radius(cloud: Cloud, cfg: CovConfig, class_aware: bool,
                      num_classes: int | None = None) -> jnp.ndarray:
-    from semicp.cloud.pallas_cov import neighborhood_moments_auto
+    from semicp.cloud.moments import neighborhood_moments
 
     label = jnp.maximum(cloud.label, 0) if class_aware else jnp.zeros_like(cloud.label)
     if cfg.radius > 0:
@@ -94,7 +87,7 @@ def _estimate_radius(cloud: Cloud, cfg: CovConfig, class_aware: bool,
     else:  # radius=0 -> auto: match the reference's k-NN density adaptivity
         radius = estimate_radius(cloud.xyz, label, cloud.valid,
                                  k=cfg.k, class_aware=class_aware)
-    mom = neighborhood_moments_auto(
+    mom = neighborhood_moments(
         cloud.xyz, label, cloud.valid, radius,
         num_classes=num_classes,
         layout=cloud.layout if class_aware else "raw",
@@ -157,10 +150,9 @@ def preprocess_cloud(cloud: Cloud, cfg, class_aware: bool = True) -> Cloud:
 
     With a full `Config`, the cloud is first put in canonical
     class-major Morton layout (corr.layout.sort_cloud_cm) — ONE sort
-    shared by the block-sparse covariance kernel here and the
-    block-sparse NN kernel inside align (which then skips its own
-    sorts). With a bare `CovConfig` (legacy callers, batched vmap
-    paths), layout is left untouched and the dense kernels run.
+    shared by the sparse moments walk here and the block-sparse NN
+    inside align (which then skips its own sorts). With a bare
+    `CovConfig`, layout is left untouched and the dense sweep runs.
     """
     num_classes = None
     if hasattr(cfg, "cov"):                  # full Config

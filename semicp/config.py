@@ -29,8 +29,8 @@ class CloudConfig:
 class CovConfig:
     """GICP plane-to-plane per-point covariance estimation (SURVEY.md §2.2 step 1).
 
-    method "radius": one-pass masked moment accumulation over a fixed
-    radius (the TPU-native fused kernel, cloud/pallas_cov.py).
+    method "radius": masked moment accumulation over a fixed radius
+    (cloud/moments.py).
     method "knn": the reference's k-nearest-neighbor semantics
     (corr/bruteforce.knn_self) — used for like-for-like oracle parity.
     Both feed the same (1,1,eps) eigenvalue clamp, which keeps only the
@@ -48,21 +48,15 @@ class CovConfig:
 class CorrConfig:
     """Correspondence engine (replaces per-class kd-trees).
 
-    engine "auto": Morton block-sparse Pallas NN for large clouds,
-    dense class-sorted Pallas NN for small ones (XLA fallback on CPU).
-    "dense" / "sparse" force a kernel (interpret-mode on CPU — used by
-    CI to pin the full sparse EM path); "xla" forces the gather
-    fallback (the ring-correspondence / CPU-mesh path).
+    engine "auto": the block-sparse walk over class-major Morton tiles
+    on a GPU (corr/sparse_nn.py), the brute-force XLA search on the CPU
+    backend. "sparse" forces the walk (interpret mode on the CPU — how
+    the tests run the product path); "xla" forces the brute force.
     """
 
-    engine: str = "auto"        # auto | dense | sparse | xla
+    engine: str = "auto"        # auto | sparse | xla
     max_dist: float = 2.0       # max correspondence distance gate (m)
     cell: float = 2.0           # Morton quantization cell (locality only, not correctness)
-    sparse_min_n: int = 4096    # auto: block-sparse kernel at/above this n_pad
-                                # (r5 on-chip crossover: sparse 3.5 vs dense
-                                # 16.4 ms/align at 4096; dense still wins at
-                                # 2048 where the candidate walk's fixed cost
-                                # exceeds one small dense grid)
 
 
 @dataclass(frozen=True)
@@ -75,19 +69,6 @@ class EMConfig:
     uniform_semantics: bool = False  # True => plain GICP ablation (uniform class weights)
     retry_overlap_frac: float = 0.8  # warm-start recovery: retry from identity when
                                      # n_corr < frac * min(|src|,|tgt|) (0 disables)
-    fused_estep: bool = False   # sparse engine: run NN+weights+reduce as ONE
-                                # kernel (register/pallas_fused.py) — bitwise-
-                                # equal, skips the (K,16,Q) HBM intermediate;
-                                # ~6 ms/align slower at the 131k bench (r5:
-                                # 85.5 vs 79.2), so it dispatches by need
-    fused_auto_min_q: int = 1 << 19  # auto-use the fused E-step at query
-                                # counts where the split path's (K,16,Q)
-                                # f32 intermediate starts to matter (0.67 GB
-                                # at 512k queries / K=20, x2 live during the
-                                # reduce) — measured time-neutral there
-                                # (323 vs 324 ms) while the fused footprint
-                                # stays O(clouds). Queries beyond 512k must
-                                # shard over the mesh (SMEM grid cap).
 
 
 @dataclass(frozen=True)
@@ -112,7 +93,7 @@ class SLAMConfig:
     lc_max_candidates: int = 3      # loop candidates verified per keyframe
     pgo_iters: int = 20             # pose-graph GN iterations
     pgo_huber: float = 1.0          # robust kernel scale
-    checkpoint_every: int = 25      # keyframes between orbax checkpoints
+    checkpoint_every: int = 25      # keyframes between checkpoints
     ba_iters: int = 6               # map-BA LM iterations (slam/map_ba.py)
     ba_gate: float = 0.5            # m, keyframe-point -> landmark match gate
     ba_max_landmarks: int = 8192    # cap on fused map landmarks for BA

@@ -5,10 +5,8 @@ from semicp.corr.layout import (  # noqa: F401
     tile_candidates,
     tile_meta,
 )
-from semicp.corr.pallas_nn2 import (  # noqa: F401
-    class_nn_attrs_pallas,
+from semicp.corr.sparse_nn import (  # noqa: F401
     class_nn_attrs_sparse,
     class_nn_attrs_xla,
     prepare_sparse,
-    sort_cloud_by_class,
 )

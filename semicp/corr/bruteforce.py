@@ -1,15 +1,10 @@
-"""MXU brute-force correspondence engine — distances as matmuls.
+"""Brute-force correspondence engine — every query against every target.
 
-The flagship correspondence path (SURVEY.md §2.1 row "Per-class kd-tree
-NN search"). Rationale, measured on the v5e: XLA's dynamic gather and
-searchsorted are near-scalar on TPU — the voxel-hash probe path
-(hashgrid.py) ran ~50x slower than the CPU kd-tree baseline. The MXU
-inverts the trade: computing ALL pairwise distances is only
-Q x N x 3 MACs (6.4 GFLOP at 32k x 32k — microseconds of systolic
-time), so exhaustive search with streaming reduction beats any
-pointer-chasing structure by orders of magnitude up to map-block sizes.
-This is the same economics that makes flash-attention tile Q x K^T
-instead of sparsifying it.
+The exact reference for the block-sparse walk (corr/sparse_nn.py) and
+the correspondence engine on the CPU backend (SURVEY.md §2.1 row
+"Per-class kd-tree NN search"). Its work is quadratic: Q x N distances
+and K masked minima per pair, so it is for tests, small clouds and
+reference checks, not for scan-scale EM on the accelerator.
 
 Scheme: tile queries (QB) x targets (TB); per tile compute
     d2 = |q|^2 + |t|^2 - 2 q . t        (dot_general, f32 HIGHEST)
@@ -33,8 +28,8 @@ import jax.numpy as jnp
 
 INF = jnp.float32(3.0e37)
 
-# Tile sizes: (QB, TB) block of the distance matrix = 1 MB f32 — small
-# enough that XLA keeps the block in VMEM inside the fused loop body.
+# Tile sizes: one (QB, TB) block of the distance matrix lives inside the
+# fused loop body; the values have not been tuned on the H100.
 QB = 512
 TB = 512
 
@@ -131,8 +126,7 @@ def knn_self(xyz, label, valid, k: int, class_aware: bool = True,
 
     def query_block(args):
         bqx, bqy, bqz, bq2, blab = args
-        # full-row distances for this query block: (qb, n). One top_k per
-        # block beats streaming sort-merges by ~10x on TPU (measured).
+        # full-row distances for this query block: (qb, n), one top_k
         d2 = _dist2_block(bqx, bqy, bqz, bq2, tx, ty, tz, t2)
         ok = valid[None, :]
         if class_aware:

@@ -1,6 +1,6 @@
 """Canonical cloud layout: class-major + Morton-within-class sort.
 
-The TPU substitute for BOTH of the reference's spatial structures —
+The substitute for BOTH of the reference's spatial structures —
 per-class FLANN kd-trees (expected usage in semantic_icp.hpp, SURVEY.md
 §2.1 row "Per-class kd-tree NN search") and the per-point kNN pass of
 covariance estimation (SURVEY.md §2.2 step 1) — is one data layout:
@@ -11,7 +11,7 @@ Consequences the kernels exploit:
   * Within any fixed-size tile of the sorted array, labels are
     NON-DECREASING, so a tile's classes form the contiguous range
     [cmin, cmax] (usually a single class; 2+ only at class boundaries).
-    The block-sparse NN kernel loops over exactly that range — no
+    The block-sparse NN walk loops over exactly that range — no
     K-wide static unroll, compile cost and run cost independent of the
     class count.
   * Each tile covers a compact region OF ONE CLASS, so per-tile AABBs
@@ -21,9 +21,9 @@ Consequences the kernels exploit:
 
 Sorting happens ONCE per cloud at preprocess time (covariance
 estimation shares the layout), marked by `Cloud.layout == "cm"`; align
-then skips its own per-align sorts. The sort composes two stable
-argsort passes (Morton, then class) because 20 classes x 30 Morton bits
-does not fit an int32 key and TPUs have no int64.
+then skips its own per-align sorts. The sort is one lexicographic sort
+over (class, Morton code): 20 classes x 30 Morton bits do not fit an
+int32 key, and the package runs with 32-bit types.
 """
 
 from __future__ import annotations
@@ -40,9 +40,8 @@ def class_morton_order(xyz, label, valid, num_classes: int, cell: float):
     """Permutation sorting by (class, Morton), invalid last (class = K).
 
     One lexicographic lax.sort over (class, code) — 20 classes x 30
-    Morton bits exceeds an int32 key and TPUs have no int64, but a
-    two-key sort needs neither (and measured ~2x faster than the
-    two-pass stable-argsort composition it replaced).
+    Morton bits exceed an int32 key, and a two-key sort needs no wider
+    one.
     """
     import jax
 
@@ -83,8 +82,7 @@ def tile_meta(xyz, label, valid, num_classes: int, tile: int) -> dict:
     return {"lo": lo, "hi": hi, "cmin": cmin, "cmax": cmax}
 
 
-def tile_candidates(qlo, qhi, tlo, thi, gate, n_cap: int | None = None,
-                    q_range=None, t_range=None, by_tid: bool = False):
+def tile_candidates(qlo, qhi, tlo, thi, gate, q_range=None, t_range=None):
     """Per-query-tile candidate target-tile lists under a distance gate.
 
     Exactness invariant: box_dist2 lower-bounds every point-pair
@@ -96,20 +94,9 @@ def tile_candidates(qlo, qhi, tlo, thi, gate, n_cap: int | None = None,
     whose class ranges do not overlap the query tile's are also pruned
     (used by same-class covariance neighborhoods).
 
-    n_cap: optional static cap on candidates per query tile. Candidates
-    are ordered nearest-box-first, so a cap drops the FARTHEST tiles;
-    the returned `overflow` scalar counts dropped tiles (0 = exact).
-
-    by_tid: order candidates by ascending tile id instead of nearest-
-    box-first. Over a class-major layout tile ids are class-sorted, so
-    the class of successive candidates is NON-DECREASING — the sparse
-    NN kernel exploits this to accumulate winners in a single run
-    buffer and flush each class row exactly once (with n_cap, the cap
-    then drops the highest tile ids, not the farthest boxes).
-
-    Returns (cand (n_qt, C) int32 — real candidates first, tail
-    repeating the last real one so the kernel pipeline re-fetches no new
-    block — count (n_qt,) int32, overflow () int32).
+    Returns (cand (n_qt, n_tt) int32 — the candidates' tile ids in
+    ascending order in the first count[i] slots, the rest 0 — and
+    count (n_qt,) int32). Nothing is dropped.
     """
     bd2 = box_dist2(qlo, qhi, tlo, thi)                      # (n_qt, n_tt)
     gate2 = gate * gate * (1.0 + 1e-5) + 1e-6
@@ -119,22 +106,13 @@ def tile_candidates(qlo, qhi, tlo, thi, gate, n_cap: int | None = None,
         tmin, tmax = t_range
         mask = mask & (qmin[:, None] <= tmax[None, :]) \
                     & (tmin[None, :] <= qmax[:, None])
+    n_qt, n_tt = mask.shape
     count = jnp.sum(mask, axis=1).astype(jnp.int32)
-    if by_tid:
-        tid = jnp.arange(mask.shape[1], dtype=jnp.int32)[None, :]
-        key = jnp.where(mask, tid, mask.shape[1]).astype(jnp.int32)
-    else:
-        # nearest-box-first among candidates, non-candidates last
-        key = jnp.where(mask, bd2, jnp.inf)
-    order = jnp.argsort(key, axis=1).astype(jnp.int32)
-    n_tt = tlo.shape[0]
-    if n_cap is not None and n_cap < n_tt:
-        overflow = jnp.maximum(jnp.max(count) - n_cap, 0)
-        order = order[:, :n_cap]
-        count = jnp.minimum(count, n_cap)
-    else:
-        overflow = jnp.int32(0)
-    last = jnp.take_along_axis(order, jnp.maximum(count - 1, 0)[:, None], axis=1)
-    cols = jnp.arange(order.shape[1], dtype=jnp.int32)
-    cand = jnp.where(cols[None, :] < count[:, None], order, last)
-    return cand, count, overflow
+    # compaction: each candidate goes to its rank among its row's
+    # candidates (a scatter, not a sort of the whole matrix)
+    slot = jnp.where(mask, jnp.cumsum(mask, axis=1) - 1, n_tt)
+    tid = jnp.broadcast_to(jnp.arange(n_tt, dtype=jnp.int32), (n_qt, n_tt))
+    rows = jnp.broadcast_to(jnp.arange(n_qt)[:, None], (n_qt, n_tt))
+    cand = jnp.zeros((n_qt, n_tt), jnp.int32).at[rows, slot].set(
+        tid, mode="drop")
+    return cand, count

@@ -1,11 +1,11 @@
-"""Morton (Z-order) spatial sorting — the TPU substitute for tree layout.
+"""Morton (Z-order) spatial sorting — a data-layout substitute for trees.
 
 The reference gets spatial locality from FLANN kd-trees (pointer
 structures XLA cannot express; SURVEY.md §2.1 row "Per-class kd-tree NN
 search"). Here locality comes from DATA LAYOUT instead: points sorted
 by interleaved-bit Morton code are stored so that each fixed-size tile
 of the array covers a compact spatial region. The block-sparse NN
-kernel (pallas_nn2.class_nn_attrs_sparse) then prunes whole tiles by
+walk (sparse_nn.class_nn_attrs_sparse) then prunes whole tiles by
 axis-aligned-bounding-box distance against the correspondence gate —
 the asymptotic O(N^2) -> O(N * c) move, with zero pointers and fully
 static shapes.

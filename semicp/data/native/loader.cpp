@@ -2,11 +2,11 @@
 //
 // Reference counterpart: the reference's entire I/O pipeline is C++
 // (PCL PCD loading + the fork's .bin conversion scripts; SURVEY.md §2.1
-// rows "PCL->semantic converter" / "Data conversion scripts"). The TPU
-// compute path is XLA/Pallas; this library is the native host runtime
-// around it: zero-copy binary parsing, label remap, and a hash-based
-// voxel downsample that runs while the previous scan is on-device
-// (Python-side threading overlaps it with TPU work).
+// rows "PCL->semantic converter" / "Data conversion scripts"). The
+// device compute path is XLA/Pallas; this library is the native host
+// runtime around it: zero-copy binary parsing, label remap, and a
+// hash-based voxel downsample that runs while the previous scan is
+// on-device (Python-side threading overlaps it with device work).
 //
 // Exposed via a plain C ABI for ctypes (no pybind11 in this image).
 //

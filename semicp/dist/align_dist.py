@@ -5,8 +5,8 @@ address space (SURVEY.md §2.3). Here ONE alignment is spread over the
 mesh: source-scan points are sharded along `axis`, the target map lives
 as mesh-sharded blocks, and each EM iteration runs
 
-  E-step  ring NN sweep (dist/ring_corr.py — fused Pallas kernel per
-          block on TPU, ppermute rotation) + local fused weight/reduce
+  E-step  ring NN sweep (dist/ring_corr.py — the block-sparse walk per
+          block, ppermute rotation) + local weight/reduce
   M-step  Gauss-Newton whose 6x6 normal equations are psum'd over the
           axis (gauss_newton.gn_solve(axis_name=...)), solved replicated
 
@@ -14,8 +14,7 @@ inside a single shard_map + lax.while_loop program. Every scalar the
 convergence check reads (step norm, iteration count) is derived from
 psum'd values, so all devices run identical trip counts and the result
 is replicated. Structurally this is the same program as the single-chip
-EM (register/em_icp.py) with two collectives inserted — the scaling
-recipe of BASELINE.json:5 (map-scale alignment over ICI).
+EM (register/em_icp.py) with two collectives inserted.
 """
 
 from __future__ import annotations
@@ -31,9 +30,9 @@ from semicp.config import Config
 from semicp.dist.ring_corr import prepare_ring_block, ring_sweep
 from semicp.geom import sym3
 from semicp.geom.se3 import se3_inverse, se3_log
-from semicp.register.em_icp import AlignResult
+from semicp.register.em_icp import AlignResult, resolve_engine
+from semicp.register.estep import estep_reduce
 from semicp.register.gauss_newton import apply_T_planar, gn_solve
-from semicp.register.pallas_estep import estep_reduce_auto
 
 
 def _local_log_sem(label, num_classes: int, alpha: float, uniform: bool):
@@ -51,8 +50,7 @@ def _local_log_sem(label, num_classes: int, alpha: float, uniform: bool):
 
 def _dist_align_local(src_xyz, src_label, src_cov6, src_valid,
                       blk_xyz, blk_label, blk_valid, blk_cov6, T0,
-                      *, cfg: Config, axis: str, engine: str,
-                      interpret: bool):
+                      *, cfg: Config, axis: str, engine: str):
     """Per-device body: full EM with ring E-step and psum'd GN."""
     K = cfg.cloud.num_classes
     blk0 = prepare_ring_block(blk_xyz, blk_label, blk_valid, blk_cov6,
@@ -70,13 +68,11 @@ def _dist_align_local(src_xyz, src_label, src_cov6, src_valid,
         moved = apply_T_planar(T, src_planes)
         moved_arr = jnp.stack(moved)
         nn_d2, attrs = ring_sweep(moved_arr, blk0, K, axis, engine,
-                                  interpret, gate=cfg.corr.max_dist,
-                                  q_valid=src_valid)
+                                  gate=cfg.corr.max_dist, q_valid=src_valid)
         rc = jnp.stack(sym3.rotate(T[:3, :3], tuple(src_cov6)))
-        a6_arr, b3_arr, c, wsum = estep_reduce_auto(
-            nn_d2, attrs, rc, moved, log_sem, src_valid,
-            gate2=cfg.corr.max_dist ** 2, interpret=interpret,
-        )
+        a6_arr, b3_arr, c, wsum = estep_reduce(
+            nn_d2, attrs, rc, moved_arr, log_sem, src_valid,
+            cfg.corr.max_dist ** 2)
         a6 = tuple(a6_arr[i] for i in range(6))
         b3 = tuple(b3_arr[i] for i in range(3))
         T_new, cost, _, H = gn_solve(T, src_planes, a6, b3, c, cfg.gn,
@@ -108,25 +104,13 @@ def make_dist_align_fn(mesh: Mesh, cfg: Config, axis: str | None = None,
     is replicated and drop-in compatible with register.make_align_fn.
     """
     axis = axis or cfg.dist.ring_axis
-    on_cpu = jax.default_backend() == "cpu"
-    if engine is None:
-        if on_cpu:
-            engine = "xla"
-        else:
-            # map blocks are where N is largest: per-shard blocks at or
-            # above the sparse threshold run the Morton/AABB block-
-            # sparse kernel per ring step (VERDICT r3 Missing #2);
-            # smaller blocks use the dense class-sorted kernel
-            n_dev = mesh.devices.size
-            blk = cfg.cloud.n_pad // max(n_dev, 1)
-            engine = ("sparse" if blk >= cfg.corr.sparse_min_n else "dense")
-    interpret = on_cpu and engine in ("dense", "sparse")
+    engine = resolve_engine(engine or cfg.corr.engine)
 
     pt = P(None, axis)
     pl_ = P(axis)
     fn = jax.shard_map(
         functools.partial(_dist_align_local, cfg=cfg, axis=axis,
-                          engine=engine, interpret=interpret),
+                          engine=engine),
         mesh=mesh,
         in_specs=(pt, pl_, pt, pl_, pt, pl_, pl_, pt, P()),
         out_specs=(P(), P(), P(), P(), P(), P()),

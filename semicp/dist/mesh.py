@@ -4,8 +4,10 @@ Reference counterpart: none — the reference is a single-process CPU
 program with no MPI/NCCL/Gloo (SURVEY.md §2.3, §5 "Distributed
 communication backend"). All distribution here is new capability: a
 named `jax.sharding.Mesh` over which shard_map programs run XLA
-collectives (psum / all_gather / ppermute) on ICI within a slice and
-DCN across hosts. XLA owns the wire; there is no custom transport.
+collectives (psum / all_gather / ppermute), which XLA hands to NCCL on
+GPUs. Every card of a host reaches every other at the same rate, so a
+mesh follows the algorithm's axes, not a physical topology. XLA owns
+the wire; there is no custom transport.
 
 Multi-host: call `init_distributed()` once per process before any mesh
 construction (jax.distributed.initialize discovers peers via the

@@ -10,23 +10,14 @@ peak memory at (query shard + one map block), exactly like blockwise
 softmax accumulation in ring attention (SURVEY.md §5 "Long-context /
 sequence parallelism").
 
-Engine: each shard class-sorts its map block ONCE before the ring spins
-(the sort is loop-invariant; the SORTED planes + packed attribute rows
-are what rotate), so every ring step runs a fused Pallas NN kernel —
-no scalar gathers anywhere in the rotation (VERDICT r1 item 4).
-
-Engines per ring step:
-  sparse — the block-sparse Morton/AABB kernel (pallas_nn2.
-           class_nn_attrs_sparse). Each shard sorts its block into the
-           canonical class-major Morton layout locally and packs
-           attrs16 + per-tile AABB/class metadata; the metadata
-           ((n_tt, 3) x2 + (n_tt,) x2 — a few KB) rotates alongside the
-           attr planes it describes. Map blocks are exactly where N is
-           largest, so the O(N x tiles-in-gate) prune matters most here
-           (VERDICT r3 Missing #2).
-  dense  — the class-sorted dense kernel (small blocks / CPU-mesh
-           interpret lane).
-  xla    — gather fallback for the CPU mesh.
+Engines per ring step (em_icp.resolve_engine):
+  sparse — the block-sparse walk (corr/sparse_nn.py). Each shard sorts
+           its block into the canonical class-major Morton layout ONCE
+           before the ring spins and packs the slab + per-tile AABB/class
+           metadata ((n_tt, 3) x2 + (n_tt,) x2 — a few KB), which rotate
+           together. Map blocks are where N is largest, so the
+           O(N x tiles-in-gate) prune matters most here.
+  xla    — the brute-force search (the CPU engine).
 
 Used for scan-to-map correspondence when the map exceeds one device
 (configs 4-5, BASELINE.json:10-11).
@@ -40,13 +31,13 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from semicp.corr.pallas_nn2 import (
+from semicp.corr.sparse_nn import (
     NATTR,
-    class_nn_attrs_pallas,
     class_nn_attrs_sparse,
     class_nn_attrs_xla,
-    sort_cloud_by_class,
+    pack_sparse,
 )
+from semicp.register.em_icp import resolve_engine
 
 INF = 3.0e37
 
@@ -61,45 +52,28 @@ def _merge(best, new):
 
 
 def prepare_ring_block(blk_xyz, blk_label, blk_valid, blk_cov6,
-                       num_classes: int, engine: str,
-                       cell: float = 1.0, tb: int = 1024):
+                       num_classes: int, engine: str, cell: float = 1.0):
     """Loop-invariant per-shard block prep (inside shard_map).
 
-    The block is sorted ONCE and the sorted planes + packed attribute
-    rows (+ tile metadata, sparse engine) are what rotate; an EM loop
-    calling `ring_sweep` each iteration pays this only once. After a
-    full sweep (n_dev rotations) every device holds its original block
-    again, so the prepared block is reusable across sweeps."""
+    The block is sorted ONCE and the packed slab (+ tile metadata) is
+    what rotates; an EM loop calling `ring_sweep` each iteration pays
+    this only once. After a full sweep (n_dev rotations) every device
+    holds its original block again, so the prepared block is reusable
+    across sweeps."""
     if engine == "sparse":
-        from semicp.corr.layout import class_morton_order, tile_meta
+        from semicp.corr.layout import class_morton_order
 
         order = class_morton_order(blk_xyz, blk_label, blk_valid,
                                    num_classes, cell)
-        xyz = jnp.take(blk_xyz, order, axis=1)
-        cov6 = jnp.take(blk_cov6, order, axis=1)
-        valid = jnp.take(blk_valid, order)
-        label = jnp.take(blk_label, order)
-        n = xyz.shape[1]
-        tb = min(tb, n)
-        label_s = jnp.where(valid, jnp.maximum(label, 0),
-                            num_classes).astype(jnp.int32)
-        ones = jnp.ones((1, n), jnp.float32)
-        t2 = jnp.sum(xyz * xyz, axis=0, keepdims=True)
-        pad = jnp.zeros((NATTR - 12, n), jnp.float32)
-        attrs16 = jnp.concatenate(
-            [xyz, cov6, ones, t2, label_s[None].astype(jnp.float32), pad],
-            axis=0)
-        meta = tile_meta(xyz, label, valid, num_classes, tb)
-        return {"attrs16": attrs16, **meta}
-    if engine == "dense":
-        xyz_s, label_s, attrs16 = sort_cloud_by_class(
-            blk_xyz, blk_label, blk_cov6, blk_valid, num_classes)
-        return (xyz_s, label_s, attrs16)
+        return pack_sparse(jnp.take(blk_xyz, order, axis=1),
+                           jnp.take(blk_label, order),
+                           jnp.take(blk_valid, order),
+                           jnp.take(blk_cov6, order, axis=1), num_classes)
     return (blk_xyz, blk_label, blk_valid, blk_cov6)
 
 
 def ring_sweep(q_xyz, blk0, num_classes: int, axis: str, engine: str,
-               interpret: bool = False, gate=2.0, q_valid=None):
+               gate=2.0, q_valid=None):
     """One full ring rotation: my query shard vs every map block.
 
     blk0 comes from `prepare_ring_block`. The map block rotates
@@ -109,7 +83,7 @@ def ring_sweep(q_xyz, blk0, num_classes: int, axis: str, engine: str,
 
     gate/q_valid are used by the sparse engine only (AABB pruning —
     beyond-gate entries may come back INF, which the E-step rejects
-    anyway; the dense/xla engines stay exact everywhere)."""
+    anyway; the xla engine stays exact everywhere)."""
     n_dev = jax.lax.axis_size(axis)
     perm = [(i, (i + 1) % n_dev) for i in range(n_dev)]
 
@@ -118,16 +92,8 @@ def ring_sweep(q_xyz, blk0, num_classes: int, axis: str, engine: str,
               if q_valid is None else q_valid)
 
         def nn(blk):
-            prep = {"xyz_s": blk["attrs16"][:3], **blk}
-            return class_nn_attrs_sparse(prep, q_xyz, qv,
-                                         num_classes=num_classes,
-                                         gate=gate, interpret=interpret)
-    elif engine == "dense":
-        def nn(blk):
-            bx, blab, battrs = blk
-            return class_nn_attrs_pallas(bx, blab, battrs, q_xyz,
-                                         num_classes=num_classes,
-                                         interpret=interpret)
+            return class_nn_attrs_sparse(blk, q_xyz, qv,
+                                         num_classes=num_classes, gate=gate)
     else:
         def nn(blk):
             bx, blab, bval, bcov = blk
@@ -143,71 +109,39 @@ def ring_sweep(q_xyz, blk0, num_classes: int, axis: str, engine: str,
     k = num_classes
     qs = q_xyz.shape[1]
     init_best = (jnp.full((k, qs), INF),
-                 jnp.zeros((k, 16, qs), jnp.float32))
+                 jnp.zeros((k, NATTR, qs), jnp.float32))
     (best, _), _ = jax.lax.scan(step, (init_best, blk0), None, length=n_dev)
     return best
 
 
 def ring_class_nn_local(q_xyz, blk_xyz, blk_label, blk_valid, blk_cov6,
-                        num_classes: int, axis: str, engine: str = "xla",
-                        interpret: bool = False, gate: float = 2.0):
+                        num_classes: int, axis: str, engine: str,
+                        gate: float = 2.0):
     """Per-device body: prepare my block, then one full ring sweep."""
     blk0 = prepare_ring_block(blk_xyz, blk_label, blk_valid, blk_cov6,
                               num_classes, engine)
-    return ring_sweep(q_xyz, blk0, num_classes, axis, engine, interpret,
-                      gate=gate)
+    return ring_sweep(q_xyz, blk0, num_classes, axis, engine, gate=gate)
 
 
 def make_ring_nn(mesh: Mesh, num_classes: int, axis: str = "blocks",
-                 engine: str = "auto", interpret: bool | None = None,
-                 gate: float = 2.0):
+                 engine: str = "auto", gate: float = 2.0):
     """Jitted ring NN: queries sharded on `axis`, map blocks sharded on
     `axis`; result sharded like the queries.
 
-    engine: "auto" picks a fused Pallas kernel on TPU (block-sparse at
-    map-block scale, dense below) and the XLA fallback on the CPU mesh;
-    force "sparse"/"dense" (optionally with interpret=True) or "xla"
-    explicitly. `gate` bounds the sparse engine's AABB prune — use the
-    EM correspondence gate.
+    engine: a `corr.engine` value, resolved by em_icp.resolve_engine.
+    `gate` bounds the sparse engine's AABB prune — use the EM
+    correspondence gate.
     """
-    on_cpu = jax.default_backend() == "cpu"
-    if interpret is None:
-        interpret = on_cpu
-
     spec_q = P(None, axis)      # (3, Q) split along points
     spec_b = P(None, axis)      # (3, N) split into blocks
     spec_l = P(axis)
-
-    def build(eng):
-        fn = jax.shard_map(
-            functools.partial(ring_class_nn_local, num_classes=num_classes,
-                              axis=axis, engine=eng, interpret=interpret,
-                              gate=gate),
-            mesh=mesh,
-            in_specs=(spec_q, spec_b, spec_l, spec_l, spec_b),
-            out_specs=(P(None, axis), P(None, None, axis)),
-            check_vma=False,
-        )
-        return jax.jit(fn)
-
-    if engine != "auto":
-        return build(engine)
-
-    # auto: resolve per call from the actual per-shard block size
-    cache: dict = {}
-    n_dev = 1
-    for ax in mesh.shape:
-        if ax == axis:
-            n_dev = mesh.shape[ax]
-
-    def auto_fn(q_xyz, blk_xyz, blk_label, blk_valid, blk_cov6):
-        from semicp.config import CorrConfig
-
-        n_blk = blk_xyz.shape[1] // n_dev
-        eng = ("xla" if on_cpu else
-               "sparse" if n_blk >= CorrConfig.sparse_min_n else "dense")
-        if eng not in cache:
-            cache[eng] = build(eng)
-        return cache[eng](q_xyz, blk_xyz, blk_label, blk_valid, blk_cov6)
-
-    return auto_fn
+    fn = jax.shard_map(
+        functools.partial(ring_class_nn_local, num_classes=num_classes,
+                          axis=axis, engine=resolve_engine(engine),
+                          gate=gate),
+        mesh=mesh,
+        in_specs=(spec_q, spec_b, spec_l, spec_l, spec_b),
+        out_specs=(P(None, axis), P(None, None, axis)),
+        check_vma=False,
+    )
+    return jax.jit(fn)

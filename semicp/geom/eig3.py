@@ -1,6 +1,6 @@
-"""Closed-form symmetric 3x3 eigendecomposition + Cholesky — pure VPU math.
+"""Closed-form symmetric 3x3 eigendecomposition + Cholesky — elementwise math.
 
-TPU-native replacement for the reference's Eigen::SelfAdjointEigenSolver
+JAX replacement for the reference's Eigen::SelfAdjointEigenSolver
 (used in GICP per-point covariance regularization, SURVEY.md §2.1 row
 "Per-point covariance estimation") and for the dense factorizations Ceres
 performs internally. Everything here is branchless, batched via leading

@@ -1,6 +1,6 @@
 """SE(3) Lie group math — pure JAX, branchless, jit/vmap-safe.
 
-TPU-native replacement for the reference's Sophus::SE3d + Ceres
+JAX replacement for the reference's Sophus::SE3d + Ceres
 LocalParameterization stack (SURVEY.md §2.1 rows "SE(3) parameterization"
 and expected files `local_parameterization_se3.h`). Instead of a 7-param
 quaternion storage with a manifold plus-operator handed to a solver, poses

@@ -1,15 +1,11 @@
 """Planar symmetric-3x3 algebra — component arrays, not (...,3,3) tensors.
 
-THE core TPU layout decision of this framework. XLA tiles the minor-most
-two dimensions of every materialized array to (8,128) lanes; an
-(N,3,3) covariance array or an (N,3) point array therefore pads 3->128
-and wastes 42x-1139x HBM and bandwidth (measured: a 1.4 GB logical
-gather became a 58 GB allocation and OOM'd the chip). The TPU-native
-representation is *planar structure-of-arrays*: a symmetric 3x3 field
-over N points is six (N,)-shaped component planes; a point field is
-three planes. Every operation here is closed-form scalar math applied
-elementwise to planes — pure VPU work in perfect (8,128) layout, which
-XLA fuses freely.
+THE core layout decision of this framework: *planar structure-of-arrays*.
+A symmetric 3x3 field over N points is six (N,)-shaped component
+planes; a point field is three planes. Each plane is contiguous along N,
+so reads coalesce and no small minor dimension (3 or 3x3) is padded or
+strided. Every operation here is closed-form scalar math applied
+elementwise to planes, which XLA fuses freely.
 
 Component order everywhere: (xx, yy, zz, xy, xz, yz) — index by the
 S3 enum-like constants below. A "sym" is any pytree of six same-shaped

@@ -8,8 +8,8 @@ replaces the unavailable C++ binary as the parity ground-truth oracle
 scans/s/chip target (BASELINE.json:5).
 
 Deliberately un-clever: brute-force per-class NN, dense per-point math,
-explicit loops over EM iterations. Everything the TPU path does with
-hash grids, masks and fused kernels must agree with THIS code on small
+explicit loops over EM iterations. Everything the accelerator path does
+with tiles, masks and fused kernels must agree with THIS code on small
 problems to the documented tolerances.
 """
 
@@ -26,7 +26,7 @@ class OracleParams:
     cov_k: int = 20
     cov_eps: float = 1e-3
     class_aware_cov: bool = True
-    cov_method: str = "knn"      # "knn" (reference) | "radius" (TPU fast path)
+    cov_method: str = "knn"      # "knn" (reference) | "radius" (the fast path)
     cov_radius: float = 0.8
     # §2.2 step 2 — E-step
     max_dist: float = 2.0

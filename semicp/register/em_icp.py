@@ -5,11 +5,10 @@ Reference counterpart: `SemanticIterativeClosestPoint<PointT,SemanticT>
 "EM semantic registration core", §2.2, §3.1). One XLA program runs the
 whole EM: a `lax.while_loop` whose body is
 
-  E-step: per-class NN for every source point (fused Pallas kernel —
-          dense class-sorted tiles, or Morton block-sparse tiles with
-          AABB-gate pruning at map scale; corr/pallas_nn2.py), then the
-          fused weight+reduce kernel collapses the class axis into
-          per-point GN planes (register/pallas_estep.py)
+  E-step: per-class NN for every source point (the block-sparse walk
+          over class-major Morton tiles with AABB-gate pruning,
+          corr/sparse_nn.py), then the weight+reduce step collapses the
+          class axis into per-point GN planes (register/estep.py)
   M-step: frozen-correspondence Gauss-Newton/LM (gauss_newton.py)
   check:  ||log(T_new T_old^-1)|| < trans_eps  (SURVEY.md §2.2 step 4)
 
@@ -20,29 +19,28 @@ state is planar (see semicp/cloud/cloud.py).
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from semicp.cloud.cloud import Cloud
 from semicp.config import Config
 from semicp.corr.layout import LAYOUT_CM, sort_cloud_cm
-from semicp.corr.pallas_nn2 import (
-    class_nn_attrs_pallas,
+from semicp.corr.sparse_nn import (
     class_nn_attrs_sparse,
     class_nn_attrs_xla,
     prepare_sparse,
-    sort_cloud_by_class,
 )
 from semicp.geom import sym3
 from semicp.geom.se3 import se3_inverse, se3_log
+from semicp.register.estep import estep_reduce
 from semicp.register.gauss_newton import apply_T_planar, gn_solve
-from semicp.register.pallas_estep import estep_reduce_auto
 
 
-@struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class AlignResult:
     T: jnp.ndarray            # (4,4) source->target transform
     iterations: jnp.ndarray   # () int32 outer EM iterations executed
@@ -52,107 +50,51 @@ class AlignResult:
     H: jnp.ndarray            # (6,6) GN Hessian at the final pose (edge info)
 
 
-def use_fused_estep(cfg: Config, q_pad: int) -> bool:
-    """One-kernel fused E-step dispatch (sparse engine only).
-
-    Explicit opt-in via em.fused_estep, or automatic once the query
-    count crosses em.fused_auto_min_q — the scale where the split
-    path's (K, 16, Q) HBM intermediate (written by the NN kernel, read
-    back by the reduce kernel) starts to dominate memory (0.67 GB at
-    512k queries). Below it the split path wins on time (79.2 vs 85.5
-    ms/align at the 131k bench); at/above it the fused kernel is
-    time-neutral (323 vs 324 ms) and memory-lean (pallas_fused.py)."""
-    return bool(cfg.em.fused_estep) or q_pad >= cfg.em.fused_auto_min_q
+ENGINES = ("auto", "sparse", "xla")
 
 
-def resolve_engine(cfg: Config) -> str:
-    """Static correspondence-engine choice (see CorrConfig.engine)."""
-    eng = cfg.corr.engine
-    if eng == "auto":
-        if jax.default_backend() == "cpu":
-            return "xla"
-        return "sparse" if cfg.cloud.n_pad >= cfg.corr.sparse_min_n else "dense"
-    return eng
+def resolve_engine(engine: str) -> str:
+    """The correspondence engine a configured `corr.engine` runs.
 
-
-def _permute_cloud(c: Cloud, order) -> Cloud:
-    return c.replace(
-        xyz=jnp.take(c.xyz, order, axis=1),
-        label=jnp.take(c.label, order),
-        cov6=jnp.take(c.cov6, order, axis=1),
-        valid=jnp.take(c.valid, order),
-    )
+    "auto" is the block-sparse walk on an accelerator and the brute-force
+    XLA search on the CPU backend; "sparse" and "xla" force one (a forced
+    "sparse" on the CPU runs its kernel in interpret mode — the tests'
+    way to run the product path without a card)."""
+    if engine not in ENGINES:
+        raise ValueError(f"corr.engine={engine!r}: expected one of {ENGINES}")
+    if engine == "auto":
+        return "xla" if jax.default_backend() == "cpu" else "sparse"
+    return engine
 
 
 def _prepare_target(tgt: Cloud, cfg: Config, engine: str) -> dict:
-    """Loop-invariant target preparation (once per align).
-
-    dense:  class-sort the planes and pack attribute rows for the fused
-            NN kernel (pallas_nn2.class_nn_attrs_pallas).
-    sparse: Morton-sort + per-tile AABBs/class-masks for the block-
-            sparse kernel (pallas_nn2.class_nn_attrs_sparse) — the
-            kd-tree-replacing O(N * tiles-in-gate) path.
-    xla:    raw cloud through the gather fallback (CPU mesh / tests).
-    """
-    if engine == "xla":
-        return ("cloud", {"cloud": tgt})
+    """Loop-invariant target preparation (once per align): tile metadata
+    and the packed slab for the sparse walk, the raw cloud for xla."""
     if engine == "sparse":
-        prep = prepare_sparse(tgt, cfg.cloud.num_classes, cfg.corr.cell)
-        return ("sparse", prep)
-    xyz_s, label_s, attrs16 = sort_cloud_by_class(
-        tgt.xyz, tgt.label, tgt.cov6, tgt.valid, cfg.cloud.num_classes
-    )
-    return ("sorted", {"xyz_s": xyz_s, "label_s": label_s, "attrs16": attrs16})
+        return prepare_sparse(tgt, cfg.cloud.num_classes, cfg.corr.cell)
+    return {"cloud": tgt}
 
 
-def _estep(tgt_prep, src: Cloud, log_sem, T, cfg: Config, gate, interpret: bool):
-    """Per-class NN + fused weight/reduce for all source points at pose T.
+def _estep(tgt_prep, src: Cloud, log_sem, T, cfg: Config, gate):
+    """Per-class NN + weight/reduce for all source points at pose T.
 
     tgt_prep is the loop-invariant prepared target from `_prepare_target`;
-    log_sem is the loop-invariant (K, N) semantic log-prior. The NN
-    kernel returns each winner's attribute row directly and the reduce
-    kernel collapses the class axis, so the EM loop contains no gathers
-    and no (K, N) round trips after this function returns.
+    log_sem is the loop-invariant (K, N) semantic log-prior.
 
     Returns (a6 (6,N), b3 (3,N), c (N), wsum (N)).
     """
     K = cfg.cloud.num_classes
-    moved = apply_T_planar(T, tuple(src.xyz))          # 3 x (N,)
-    moved_arr = jnp.stack(moved)                       # (3, N)
-    R = T[:3, :3]
-
-    kind, prep = tgt_prep
-    if kind == "sparse":
-        if use_fused_estep(cfg, src.n_pad):
-            # one-kernel path: NN + weights + class reduction fused,
-            # no (K,16,N) HBM intermediate (register/pallas_fused.py)
-            from semicp.register.pallas_fused import estep_sparse_fused
-
-            rc = jnp.stack(sym3.rotate(R, tuple(src.cov6)))
-            return estep_sparse_fused(
-                prep, moved_arr, src.valid, rc, log_sem,
-                num_classes=K, gate=gate, interpret=interpret,
-            )
-        nn_d2, attrs = class_nn_attrs_sparse(
-            prep, moved_arr, src.valid, num_classes=K,
-            gate=gate, interpret=interpret,
-        )
-    elif kind == "sorted":
-        nn_d2, attrs = class_nn_attrs_pallas(
-            prep["xyz_s"], prep["label_s"], prep["attrs16"],
-            moved_arr, num_classes=K, interpret=interpret,
-        )
-    else:
-        tgt = prep["cloud"]
+    moved = jnp.stack(apply_T_planar(T, tuple(src.xyz)))  # (3, N)
+    if "cloud" in tgt_prep:
+        tgt = tgt_prep["cloud"]
         nn_d2, attrs = class_nn_attrs_xla(
-            tgt.xyz, tgt.label, tgt.valid, tgt.cov6, moved_arr, num_classes=K,
-        )
-    rc = jnp.stack(sym3.rotate(R, tuple(src.cov6)))    # (6, N) rotated src cov
-    a6, b3, c, wsum = estep_reduce_auto(
-        nn_d2, attrs, rc, moved, log_sem, src.valid,
-        gate2=gate * gate, interpret=interpret,
-    )
-    return a6, b3, c, wsum
+            tgt.xyz, tgt.label, tgt.valid, tgt.cov6, moved, num_classes=K)
+    else:
+        nn_d2, attrs = class_nn_attrs_sparse(
+            tgt_prep, moved, src.valid, num_classes=K, gate=gate)
+    rc = jnp.stack(sym3.rotate(T[:3, :3], tuple(src.cov6)))  # (6, N)
+    return estep_reduce(nn_d2, attrs, rc, moved, log_sem, src.valid,
+                        gate * gate)
 
 
 def _log_sem(src: Cloud, cfg: Config):
@@ -170,9 +112,9 @@ def _log_sem(src: Cloud, cfg: Config):
 
 
 def _align_impl(src: Cloud, tgt: Cloud, T0, gate, max_iters, cfg: Config):
-    # TPU's DEFAULT f32 matmul precision truncates operands to bf16; the
-    # small geometry matmuls here (4x4 pose composition, 6x6 solves) are
-    # correctness-critical, so pin full f32 for this program only.
+    # The GPU's DEFAULT f32 matmul precision may run products in TF32
+    # (about 10 mantissa bits); the small geometry matmuls here (4x4 pose
+    # composition, 6x6 solves) are correctness-critical, so pin full f32.
     with jax.default_matmul_precision("highest"):
         return _align_scoped(src, tgt, T0, gate, max_iters, cfg)
 
@@ -181,11 +123,8 @@ def _align_scoped(src: Cloud, tgt: Cloud, T0, gate, max_iters, cfg: Config):
     # gate (correspondence max distance) and max_iters are RUNTIME
     # scalars: SLAM loop-closure verification re-runs this same compiled
     # program with a wide gate and a larger iteration budget instead of
-    # paying a second ~27 s KITTI-scale compile (VERDICT r3 Missing #3).
-    engine = resolve_engine(cfg)
-    # forced Pallas engines run interpret-mode on CPU (CI pins the full
-    # sparse/dense EM path without a chip)
-    interpret = jax.default_backend() == "cpu"
+    # paying a second scan-scale compile (VERDICT r3 Missing #3).
+    engine = resolve_engine(cfg.corr.engine)
     if engine == "sparse" and src.layout != LAYOUT_CM:
         # canonical sort once: query tiles then cover compact regions,
         # which is what makes AABB tile pruning effective (preprocessed
@@ -202,7 +141,7 @@ def _align_scoped(src: Cloud, tgt: Cloud, T0, gate, max_iters, cfg: Config):
     def body(carry):
         T, it, _step, _cost, _n, _H = carry
         a6_arr, b3_arr, c, wsum = _estep(tgt_prep, src, log_sem, T, cfg,
-                                         gate, interpret)
+                                         gate)
         a6 = tuple(a6_arr[i] for i in range(6))
         b3 = tuple(b3_arr[i] for i in range(3))
         T_new, cost, _, H = gn_solve(T, src_planes, a6, b3, c, cfg.gn)

@@ -1,4 +1,4 @@
-"""NDT baseline — voxel-Gaussian registration, TPU-native.
+"""NDT baseline — voxel-Gaussian registration.
 
 Reference counterpart: the `pcl::NormalDistributionsTransform`
 comparison instantiated in the reference's driver mains (SURVEY.md §2.1
@@ -19,8 +19,7 @@ second registration engine:
      nearest voxel Gaussian within the gate (nearest-Gaussian
      association, the standard grid-free NDT variant — PCL probes the
      containing voxel's neighborhood; nearest-mean-in-gate covers the
-     same support without voxel hashing, which is gather-hostile on
-     TPU), and the M-step minimizes the weighted Mahalanobis cost with
+     same support without voxel hashing), and the M-step minimizes the weighted Mahalanobis cost with
      the voxel covariances — NDT's quadratic score surrogate.
 
 Classic NDT ignores labels (all classes collapse to 0, uniform

@@ -11,8 +11,8 @@ is the host-side assembly around slam/schur.py's distributed solver:
                   them);
   2. observations = per-keyframe semantic correspondences: every
                   keyframe point is matched to its same-class nearest
-                  landmark within a gate (corr/bruteforce.class_nn, the
-                  MXU path); the measurement z_il is the point's
+                  landmark within a gate (corr/bruteforce.class_nn);
+                  the measurement z_il is the point's
                   keyframe-LOCAL coordinates;
   3. solve      = slam/schur.make_ba_solver over the mesh (landmarks +
                   their observations sharded on the ring axis, pose

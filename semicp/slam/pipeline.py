@@ -13,8 +13,8 @@ on a single chip the honest version of that is host/device overlap:
            (4,4) result, by which time stage 1 has the next scan ready
            and stage 2 for it is already enqueued behind the align
 
-A TPU core runs one program at a time, so stages 2 and 3 cannot overlap
-*on device* for the same stream — the wins are (a) host IO/numpy hidden
+Stages 2 and 3 of one stream depend on each other, so they cannot
+overlap *on device* — the wins are (a) host IO/numpy hidden
 behind device compute and (b) no host<->device sync bubbles between
 stages. The pipeline changes SCHEDULING only: alignment inputs and
 results are bit-identical to the serial loop (tests assert equality).

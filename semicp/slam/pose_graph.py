@@ -4,11 +4,11 @@ Reference counterpart: NONE — the reference chains frame-to-frame
 transforms with no keyframing or graph optimization (SURVEY.md §3.2);
 PGO is a north-star extension mandated by BASELINE.json:5,9.
 
-TPU-native shape: the graph lives in fixed-capacity padded arrays
+Shape: the graph lives in fixed-capacity padded arrays
 (M_pad poses, E_pad edges, masks for the tails) so the whole GN loop is
 one jitted program. Per iteration every edge residual/Jacobian is
 evaluated in one batch, the dense 6M x 6M normal matrix is assembled
-with one-hot einsums (scatter-free — TPU scatters are scalar-slow), and
+with one-hot einsums (scatter-free), and
 the solve is a single dense factorization. For map sizes where a dense
 solve stops being the right call, semicp/slam/schur.py shards the same
 assembly over a mesh (SURVEY.md §2.3 "Distributed solver").
@@ -23,17 +23,18 @@ Math (left-multiplicative updates T <- exp(delta) T, tangent [v, w]):
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from semicp.config import SLAMConfig
 from semicp.geom.se3 import se3_adjoint, se3_exp, se3_inverse, se3_log
 
 
-@struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class PoseGraph:
     """Fixed-capacity pose graph (a JAX pytree).
 
@@ -60,6 +61,9 @@ class PoseGraph:
     edge_info: jnp.ndarray
     edge_W: jnp.ndarray
     n_edges: jnp.ndarray
+
+    def replace(self, **changes) -> "PoseGraph":
+        return dataclasses.replace(self, **changes)
 
     @classmethod
     def empty(cls, m_pad: int, e_pad: int) -> "PoseGraph":
@@ -105,9 +109,9 @@ def _robust_cost(graph: PoseGraph, poses, delta_h: float) -> jnp.ndarray:
 def optimize_pose_graph(graph: PoseGraph, cfg: SLAMConfig) -> PoseGraph:
     """Run cfg.pgo_iters Levenberg–Marquardt iterations on the graph.
 
-    Robustness by construction (TPU solves the system in f32, so the
-    old 1e6-gauge-prior/1e-5-damping formulation was ~1e11-conditioned
-    and diverged on-chip):
+    Robustness by construction (the system is solved in f32, where a
+    1e6-gauge-prior/1e-5-damping formulation is ~1e11-conditioned and
+    diverges):
       * pose 0 and padded poses are gauge-fixed by ELIMINATION — their
         rows/cols are zeroed and their diagonal set to 1 — not by a
         huge prior, so H stays well-conditioned;
@@ -180,11 +184,11 @@ def optimize_pose_graph(graph: PoseGraph, cfg: SLAMConfig) -> PoseGraph:
         return poses, lam
 
     def body(i, state):
-        # TPU's DEFAULT matmul precision truncates f32 operands to bf16
-        # (8 mantissa bits): with it, the assembled H/g are inconsistent
-        # enough that LM steps are not descent directions and the solver
-        # stalls (measured: chain cost plateaus at 0.12 instead of 1e-11).
-        # Normal-equation assembly and the solve must run at full f32.
+        # DEFAULT matmul precision may run f32 products in TF32 on the
+        # GPU (about 10 mantissa bits): with it, the assembled H/g are
+        # inconsistent enough that LM steps are not descent directions
+        # and the solver stalls. Normal-equation assembly and the solve
+        # must run at full f32.
         with jax.default_matmul_precision("highest"):
             return _body(i, state)
 

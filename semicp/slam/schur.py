@@ -2,7 +2,7 @@
 
 Reference counterpart: NONE — mandated new capability (BASELINE.json:5:
 "distributed bundle adjustment / pose-graph solves via Schur-complement
-reduction over ICI collectives"; SURVEY.md §2.3 "Distributed solver").
+reduction over device collectives"; SURVEY.md §2.3 "Distributed solver").
 
 Problem: keyframe poses T_i (replicated) + map landmarks p_l (sharded
 over the mesh) with observations z_il = T_i^{-1} p_l + noise.
@@ -21,7 +21,7 @@ Distribution: each device holds a landmark shard and ITS observations;
 S (6M x 6M) and g_s are psum'd over the mesh axis, the reduced pose
 solve runs replicated on every device (deterministic — same values in,
 same values out), and landmark back-substitution is local to each
-shard. This is the exact Schur-over-ICI pattern from the north star.
+shard. This is the Schur-over-collectives pattern from the north star.
 
 Robustness (same construction as pose_graph.optimize_pose_graph, which
 replaced a 1e6-gauge-prior formulation that was ~1e11-conditioned in
@@ -147,9 +147,9 @@ def _ba_loop(poses, lms, obs_pose, obs_lm, obs_z, obs_w, m, axis, iters):
         return ba_step_local(poses, lms, obs_pose, obs_lm, obs_z, obs_w,
                              m, axis, lam)
 
-    # normal-equation assembly and the solve need full f32 (TPU's default
-    # matmul precision truncates to bf16 — measured to stall LM descent
-    # in the pose-graph solver; pose_graph.py:body)
+    # normal-equation assembly and the solve need full f32 (DEFAULT
+    # matmul precision may use TF32 on the GPU, which stalls LM descent;
+    # pose_graph.py:body)
     with jax.default_matmul_precision("highest"):
         poses, lms, _ = jax.lax.fori_loop(
             0, iters, body, (poses, lms, jnp.float32(1e-4)))

@@ -1,1 +1,1 @@
-from semicp.utils.metrics import MetricsLogger, PhaseTimer, drain  # noqa: F401
+from semicp.utils.metrics import MetricsLogger, PhaseTimer  # noqa: F401

@@ -1,8 +1,8 @@
 """Correspondence engine exactness vs numpy brute force (SURVEY.md §4.2).
 
-The MXU brute-force engine (corr/bruteforce.py) is the semantic ground
-truth for every faster path: the dense class-sorted kernel and the
-Morton block-sparse kernel are tested against it in test_pallas.py;
+The brute-force engine (corr/bruteforce.py) is the semantic ground
+truth for every faster path: the block-sparse walk is tested against it
+in test_pallas.py;
 here the engine itself is pinned against an O(N^2) numpy oracle, and
 the Morton tiling utilities are pinned against their invariants.
 """
@@ -85,25 +85,3 @@ def test_box_dist2_lower_bounds_point_dist(rng):
                                jnp.asarray(tlo), jnp.asarray(thi)))
     pd2 = np.sum((a[:, None] - b[None]) ** 2, -1)
     assert (bd2 <= pd2 + 1e-4).all()
-
-
-def test_sparse_kernel_grid_capacity_guard():
-    """Queries beyond 512k/device must raise the mesh-sharding error,
-    not an opaque remote-compile SMEM failure (r5: ~1 KB/program SMEM
-    bookkeeping caps grids at ~1024 programs)."""
-    import jax.numpy as jnp
-    import pytest
-
-    from semicp.corr.pallas_nn2 import class_nn_attrs_sparse
-
-    n_tt = 4
-    prep = {
-        "xyz_s": jnp.zeros((3, 4096)), "label_s": jnp.zeros(4096, jnp.int32),
-        "attrs16": jnp.zeros((16, 4096)),
-        "lo": jnp.zeros((n_tt, 3)), "hi": jnp.zeros((n_tt, 3)),
-        "cmin": jnp.zeros(n_tt, jnp.int32), "cmax": jnp.zeros(n_tt, jnp.int32),
-    }
-    q = jnp.zeros((3, 1 << 21))
-    with pytest.raises(ValueError, match="shard queries over the mesh"):
-        class_nn_attrs_sparse(prep, q, jnp.ones(1 << 21, bool),
-                              num_classes=4, gate=2.0)

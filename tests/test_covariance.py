@@ -1,6 +1,7 @@
 """Covariance preprocessing vs the numpy oracle (SURVEY.md §4.2, §3.4)."""
 
 import numpy as np
+import pytest
 
 from semicp.cloud import make_cloud, preprocess_cloud
 from semicp.config import CovConfig
@@ -14,39 +15,13 @@ def cov_matrices(cloud, n):
     return np.asarray(sym3.to_matrix(tuple(cloud.cov6)))[:n]
 
 
-def test_moment_kernel_matches_xla(rng):
-    """Pallas moment kernel (interpret) == XLA fallback == direct numpy."""
-    import jax.numpy as jnp
-
-    from semicp.cloud.pallas_cov import (
-        neighborhood_moments_pallas, neighborhood_moments_xla,
-    )
-
-    N = 1024
-    xyz = rng.normal(size=(3, N)).astype(np.float32) * 3
-    lab = rng.integers(0, 4, size=N).astype(np.int32)
-    val = rng.uniform(size=N) > 0.1
-    r = 1.0
-    m_x = np.asarray(neighborhood_moments_xla(
-        jnp.asarray(xyz), jnp.asarray(lab), jnp.asarray(val), r))
-    m_p = np.asarray(neighborhood_moments_pallas(
-        jnp.asarray(xyz), jnp.asarray(lab), jnp.asarray(val), r,
-        qb=256, tb=256, interpret=True))
-    np.testing.assert_allclose(m_p, m_x, rtol=1e-4, atol=1e-3)
-    # spot-check counts vs direct numpy for a few valid points
-    for i in list(np.nonzero(val)[0][:20]):
-        d2 = ((xyz.T - xyz.T[i]) ** 2).sum(-1)
-        mask = (d2 < r * r) & (lab == lab[i]) & val
-        assert abs(m_x[0, i] - mask.sum()) <= 1, (i, m_x[0, i], mask.sum())
-
-
 def test_sparse_moment_covariances_match_dense(rng):
-    """Block-sparse moments (cm layout, interpret) == XLA moments through
-    the covariance epilogue. Moments are compared at the COVARIANCE level
-    because the sparse kernel centers per query tile (documented contract)."""
+    """Sparse moments walk (cm layout) == dense XLA moments through the
+    covariance epilogue. Moments are compared at the COVARIANCE level
+    because the walk centres per query tile (documented contract)."""
     import jax.numpy as jnp
 
-    from semicp.cloud.pallas_cov import (
+    from semicp.cloud.moments import (
         neighborhood_moments_sparse, neighborhood_moments_xla,
     )
     from semicp.corr.layout import sort_cloud_cm
@@ -58,8 +33,7 @@ def test_sparse_moment_covariances_match_dense(rng):
     r = 0.9
     m_x = np.asarray(neighborhood_moments_xla(c.xyz, label, c.valid, r))
     m_s = np.asarray(neighborhood_moments_sparse(
-        c.xyz, label, c.valid, r, num_classes=K, qb=256, tb=256,
-        interpret=True))
+        c.xyz, label, c.valid, r, num_classes=K, qb=256, tb=256))
 
     def to_cov(m):
         cnt = np.maximum(m[0], 1.0)
@@ -73,6 +47,30 @@ def test_sparse_moment_covariances_match_dense(rng):
     valid = np.asarray(c.valid) & (m_x[0] >= 3)
     np.testing.assert_allclose(to_cov(m_s)[:, valid], to_cov(m_x)[:, valid],
                                rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_sparse_moments_compiled_match_dense(gpu, rng):
+    """The moments walk compiled for the card against the dense sweep at
+    a width where query tiles have several candidates."""
+    import jax
+    import jax.numpy as jnp
+
+    from semicp.cloud.moments import (
+        neighborhood_moments_sparse, neighborhood_moments_xla,
+    )
+    from semicp.corr.layout import sort_cloud_cm
+
+    N, K = 16384, 8
+    xyz, lab = make_scene(rng, n_points=15000, extent=20.0, n_classes=K)
+    with jax.default_device(gpu):
+        c = sort_cloud_cm(make_cloud(xyz, lab - 1, n_pad=N), K, cell=2.0)
+        label = jnp.maximum(c.label, 0)
+        m_x = np.asarray(neighborhood_moments_xla(c.xyz, label, c.valid, 0.8))
+        m_s = np.asarray(neighborhood_moments_sparse(
+            c.xyz, label, c.valid, 0.8, num_classes=K))
+    valid = np.asarray(c.valid)
+    np.testing.assert_array_equal(m_s[0][valid], m_x[0][valid])
 
 
 def test_preprocess_full_config_sorts_and_matches_legacy(rng):
@@ -99,7 +97,7 @@ def test_preprocess_full_config_sorts_and_matches_legacy(rng):
     # mean^2 epilogue carries summation-order-dependent cancellation
     # noise (~0.1 abs on a handful of near-degenerate neighborhoods);
     # the sorted path sums the same values in a different order. The
-    # sparse TPU kernel centers per tile and does not have this issue.
+    # sparse walk centres per tile and does not have this issue.
     np.testing.assert_allclose(new_cov[order_n], old_cov[order_o],
                                rtol=2e-3, atol=0.2)
     close = np.isclose(new_cov[order_n], old_cov[order_o], rtol=2e-3, atol=2e-3)

@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from semicp.corr.pallas_nn2 import class_nn_attrs_xla
+from semicp.corr.sparse_nn import class_nn_attrs_xla
 from semicp.dist import make_mesh
 from semicp.dist.ring_corr import make_ring_nn
 from semicp.geom.se3 import se3_exp
@@ -37,34 +37,9 @@ def test_ring_nn_matches_single(rng):
                                np.moveaxis(at_ref, 1, 0)[:, f], atol=1e-5)
 
 
-def test_ring_nn_dense_engine_matches_single(rng):
-    """The product TPU path — fused Pallas NN inside the ring (interpret
-    mode on the CPU mesh) — must equal the single-device reference."""
-    D, K = 8, 4
-    N, Q = 1024, 512
-    xyz = jnp.asarray(rng.normal(size=(3, N)).astype(np.float32) * 10)
-    lab = jnp.asarray(rng.integers(0, K, size=N).astype(np.int32))
-    val = jnp.asarray(rng.uniform(size=N) > 0.1)
-    cov6 = jnp.asarray(rng.normal(size=(6, N)).astype(np.float32))
-    q = jnp.asarray(rng.normal(size=(3, Q)).astype(np.float32) * 10)
-
-    d2_ref, at_ref = class_nn_attrs_xla(xyz, lab, val, cov6, q, K)
-
-    mesh = make_mesh({"blocks": D})
-    ring = make_ring_nn(mesh, num_classes=K, engine="dense", interpret=True)
-    d2, at = ring(q, xyz, lab, val, cov6)
-
-    d2, at, d2_ref, at_ref = map(np.asarray, (d2, at, d2_ref, at_ref))
-    f = d2_ref < 1e30
-    assert (f == (d2 < 1e30)).all()
-    np.testing.assert_allclose(d2[f], d2_ref[f], rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(np.moveaxis(at, 1, 0)[:, f],
-                               np.moveaxis(at_ref, 1, 0)[:, f], atol=1e-5)
-
-
 def test_ring_nn_sparse_engine_matches_single_within_gate(rng):
-    """The map-scale TPU path — the Morton/AABB block-sparse NN kernel
-    inside the ring (interpret mode on the CPU mesh) — must equal the
+    """The map-scale path — the block-sparse walk inside the ring
+    (interpret mode on the CPU mesh) — must equal the
     single-device reference for every correspondence within the gate
     (beyond it the sparse prune may return INF; the E-step rejects
     there anyway). VERDICT r3 Missing #2."""
@@ -79,8 +54,7 @@ def test_ring_nn_sparse_engine_matches_single_within_gate(rng):
     d2_ref, at_ref = class_nn_attrs_xla(xyz, lab, val, cov6, q, K)
 
     mesh = make_mesh({"blocks": D})
-    ring = make_ring_nn(mesh, num_classes=K, engine="sparse",
-                        interpret=True, gate=gate)
+    ring = make_ring_nn(mesh, num_classes=K, engine="sparse", gate=gate)
     d2, at = ring(q, xyz, lab, val, cov6)
 
     d2, at, d2_ref, at_ref = map(np.asarray, (d2, at, d2_ref, at_ref))

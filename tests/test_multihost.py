@@ -3,7 +3,7 @@
 Two local processes bootstrap jax.distributed against a loopback
 coordinator, form a global 2-device CPU mesh, and run the framework's
 collective paths. This exercises the exact process-boundary code that a
-real N-host pod slice uses (DCN coordination + global mesh), minus the
+real N-host cluster uses (cross-host coordination + global mesh), minus the
 physical fabric. Also doubles as the fault-injection harness: killing
 one worker mid-run must leave the survivor failing loudly, not hanging
 forever (we bound it with a timeout).
@@ -132,7 +132,7 @@ WORKER_PROGRAM = textwrap.dedent(
     setup_jax()          # persistent compile cache for worker programs
     from semicp import Config
     from semicp.cloud import make_cloud, preprocess_cloud
-    from semicp.corr.pallas_nn2 import class_nn_attrs_xla
+    from semicp.corr.sparse_nn import class_nn_attrs_xla
     from semicp.data import make_pair, make_scene
     from semicp.dist import batched_align, make_mesh
     from semicp.dist.batch import shard_batch
